@@ -4,6 +4,10 @@ from __future__ import annotations
 
 import numpy as np
 
+# backend name of the GPU kernel family run in the Pallas interpreter: the
+# tests' way to reach the kernels on a host without a GPU
+KERNEL = "interpret"
+
 CODE_A = np.array([2.0, 0.0, 1.0, 0.0])  # dosage per 2-bit code
 CODE_B = np.array([1.0, 0.0, 1.0, 1.0])  # non-missing indicator
 

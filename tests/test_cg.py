@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gvamp_tpu import cg
-from gvamp_tpu.data import GenoBed
+from gvamp import cg
+from gvamp.data import GenoBed
 from helpers import DenseOracle, random_dataset
 from test_data_layer import make_bed
 
@@ -72,8 +72,8 @@ def test_deflated_cg_matches_and_converges_faster():
     LD-structured (serially correlated) genotypes."""
     import jax
     import jax.numpy as jnp
-    from gvamp_tpu.data import GenoBed
-    from gvamp_tpu import linear, sim
+    from gvamp.data import GenoBed
+    from gvamp import linear, sim
     from test_data_layer import make_bed
 
     rng = np.random.default_rng(0)
@@ -135,7 +135,7 @@ def test_block_cg_zero_rhs_column_finishes():
 def test_geo_damp_properties():
     """geo_damp: s=1 identity, inactive passthrough, bounded log-step."""
     import numpy as np
-    from gvamp_tpu.linear import geo_damp
+    from gvamp.linear import geo_damp
 
     old, new = jnp.asarray(2.0), jnp.asarray(2.0e6)
     # s=1: raw update

@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gvamp_tpu import cli, sim
-from gvamp_tpu.io import plink, vecio
+from gvamp import cli, sim
+from gvamp.io import plink, vecio
 
 # engine-scale tests: excluded from the <5-min core tier (README: test tiers)
 pytestmark = pytest.mark.slow
@@ -23,7 +23,7 @@ def dataset(tmp_path_factory):
     codes = sim.random_genotypes(rng, M, N, miss_rate=0.01)
     bed = str(d / "t.bed")
     plink.write_bed(bed, codes)
-    from gvamp_tpu.data import GenoBed
+    from gvamp.data import GenoBed
     from tests_shim import make_bed_bytes
     geno = GenoBed.from_arrays(make_bed_bytes(codes), np.zeros(N), N=N,
                                standardize_phen=False, dtype=jnp.float64)
@@ -194,7 +194,7 @@ def test_meth_infere_mode(tmp_path):
     meth = str(tmp_path / "m.meth")
     plink.write_meth(meth, X)
     # simulate y from the dense container directly
-    from gvamp_tpu.data import GenoDense
+    from gvamp.data import GenoDense
     geno = GenoDense.from_arrays(X, np.zeros(N), N=N, standardize_phen=False,
                                  dtype=jnp.float64)
     vars_t, probs_t = sim.two_group_prior(M, 8, 0.8)
@@ -253,7 +253,7 @@ def test_probit_with_covariates_cli(dataset, tmp_path):
     then test mode with cov-estimate (main_real_probit.cpp)."""
     ds = dataset
     rng = np.random.default_rng(8)
-    from gvamp_tpu.data import GenoBed
+    from gvamp.data import GenoBed
     from tests_shim import make_bed_bytes
     from scipy.stats import norm
     C = 2
@@ -399,7 +399,7 @@ def test_multi_trait_roundtrip_modes(dataset, tmp_path):
     ds = dataset
     rng = np.random.default_rng(5)
     # second trait: an independent phenotype over the same bed
-    from gvamp_tpu.data import GenoBed
+    from gvamp.data import GenoBed
     from tests_shim import make_bed_bytes
     codes_geno = GenoBed.from_files(ds["bed"], None, N=ds["N"], Mt=ds["M"],
                                     standardize_phen=False,

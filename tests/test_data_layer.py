@@ -8,11 +8,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gvamp_tpu.data import GenoBed, GenoDense
-from gvamp_tpu.io import plink
-from gvamp_tpu.ops.layout import PlanarLayout, CODE_TO_DOSAGE, CODE_TO_NONMISS
+from gvamp.data import GenoBed, GenoDense
+from gvamp.io import plink
+from gvamp.ops.layout import PlanarLayout, CODE_TO_DOSAGE, CODE_TO_NONMISS
 
-from helpers import DenseOracle, random_dataset
+from helpers import KERNEL, DenseOracle, random_dataset
 
 
 def make_bed(codes):
@@ -139,14 +139,13 @@ def test_dense_container_matches_bed_when_no_missing():
     )
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", pytest.param(KERNEL, id="pallas")])
 def test_batched_matvec_matches_single(backend):
     """axm/atxm (wide-RHS block kernels) == column-wise ax/atx."""
     rng = np.random.default_rng(11)
     N, M, B = 130, 40, 3
     codes, y = random_dataset(rng, N, M)
-    # pallas+f64 is rejected since round 4 (no silent downgrade); the
-    # pallas container therefore runs at its native f32
+    # the kernels are float32 only (int8 digits; float64 is refused)
     dt = jnp.float64 if backend == "xla" else jnp.float32
     geno = GenoBed.from_arrays(make_bed(codes), y, N=N, dtype=dt,
                                backend=backend)
@@ -184,9 +183,9 @@ def test_batched_matvec_dense_container():
 
 
 def test_pallas_backend_under_mesh():
-    """Pallas kernels (interpret mode on CPU) under shard_map on an 8-device
-    mesh agree with the unsharded XLA path — validates the in/out specs the
-    real multi-chip run uses."""
+    """The kernels (Pallas interpreter) under shard_map on an 8-device mesh
+    agree with the unsharded XLA path — validates the in/out specs the real
+    multi-card run uses."""
     import jax
 
     rng = np.random.default_rng(19)
@@ -195,7 +194,7 @@ def test_pallas_backend_under_mesh():
     devs = jax.devices()[:8]
     mesh = jax.sharding.Mesh(np.array(devs), ("m",))
     g_sh = GenoBed.from_arrays(make_bed(codes), y, N=N,
-                               backend="pallas", mesh=mesh)
+                               backend=KERNEL, mesh=mesh)
     g_ref = GenoBed.from_arrays(make_bed(codes), y, N=N, dtype=jnp.float64,
                                 backend="xla")
     x = rng.normal(size=g_sh.Mpad) * np.asarray(g_sh.m_mask)
@@ -212,43 +211,15 @@ def test_pallas_backend_under_mesh():
         np.asarray(g_ref.axm(jnp.asarray(X[: g_ref.Mpad]))), rtol=1e-5, atol=1e-7)
 
 
-def test_fused_dual_gram_under_mesh():
-    """The dual Gram is additive over marker shards (A A^T = sum_s A_s A_s^T),
-    so the shard_mapped fused kernel + one psum must match both the unsharded
-    fused operator and the two-pass composition on the same meshed data."""
-    import jax
-
-    rng = np.random.default_rng(23)
-    N, M = 130, 40
-    codes, y = random_dataset(rng, N, M)
-    mesh = jax.sharding.Mesh(np.array(jax.devices()[:8]), ("m",))
-    g_sh = GenoBed.from_arrays(make_bed(codes), y, N=N,
-                               backend="pallas", mesh=mesh)
-    g_ref = GenoBed.from_arrays(make_bed(codes), y, N=N,
-                                backend="pallas")
-    fn_sh, fn_ref = g_sh.fn_gram_aat(), g_ref.fn_gram_aat()
-    assert fn_sh is not None and fn_ref is not None
-    B = 3
-    Up = jnp.asarray(np.stack(
-        [np.asarray(g_sh.planarize(rng.normal(size=N))) for _ in range(B)],
-        axis=-1))
-    z_sh = np.asarray(jax.jit(fn_sh)(g_sh.op, Up))
-    z_ref = np.asarray(jax.jit(fn_ref)(g_ref.op, Up))
-    scale = np.abs(z_ref).max() + 1e-30
-    np.testing.assert_allclose(z_sh, z_ref, rtol=0, atol=5e-5 * scale)
-    z_two_pass = np.asarray(g_sh.axm(g_sh.atxm(Up)))
-    np.testing.assert_allclose(z_sh, z_two_pass, rtol=0, atol=5e-5 * scale)
-
-
 def test_no_missing_fast_path():
-    """Complete (imputed) genotypes route through the a-only kernels and
-    match the general path exactly."""
+    """Complete (imputed) genotypes route through the complete-path kernels and
+    match the general path."""
     rng = np.random.default_rng(29)
     N, M = 130, 40
     codes = rng.choice([0, 2, 3], size=(M, N)).astype(np.uint8)  # no code 1
     y = rng.normal(size=N)
     y[rng.choice(N, 9, replace=False)] = np.nan  # phenotype NAs still exist
-    fast = GenoBed.from_arrays(make_bed(codes), y, N=N, backend="pallas")
+    fast = GenoBed.from_arrays(make_bed(codes), y, N=N, backend=KERNEL)
     ref = GenoBed.from_arrays(make_bed(codes), y, N=N, dtype=jnp.float64,
                               backend="xla")
     assert fast.geno_complete and ref.geno_complete is True
@@ -270,13 +241,13 @@ def test_no_missing_fast_path():
                                rtol=1e-5, atol=1e-6)
     # incomplete data must NOT take the fast path
     codes2, y2 = random_dataset(rng, N, M)
-    g2 = GenoBed.from_arrays(make_bed(codes2), y2, N=N, backend="pallas")
+    g2 = GenoBed.from_arrays(make_bed(codes2), y2, N=N, backend=KERNEL)
     assert g2.geno_complete is False
 
 
 def test_decode_utility_matches_layout_oracle():
     """ops.decode public API agrees with the layout dense oracle."""
-    from gvamp_tpu.ops import decode
+    from gvamp.ops import decode
 
     rng = np.random.default_rng(31)
     N, M = 61, 9
@@ -296,242 +267,55 @@ def test_decode_utility_matches_layout_oracle():
 
 
 def test_wide_kernel_column_chunking():
-    """Wide calls beyond the per-kernel VMEM column cap split and concat."""
-    from gvamp_tpu.ops import matvec
+    """Right-hand sides wider than one program's digit block are split into
+    column chunks and concatenated; each column matches its own call."""
+    from gvamp.ops import matvec
 
     rng = np.random.default_rng(13)
-    Nw, M, B = 32, 512, matvec._BMAX_AXM_A + 7
+    Nw, M = 32, 512
     words = jnp.asarray(rng.integers(0, 2**32, size=(Nw, M),
                                      dtype=np.uint64).astype(np.uint32))
+    B = matvec._AX_C_MAX // matvec._NDIG + 7
     W = jnp.asarray(rng.standard_normal((M, B)), jnp.float32)
-    za = np.asarray(matvec.axm_i8a_pallas(words, W))
+    U = W * 0.5
+    za = np.asarray(matvec.axm_pallas(words, W, U, interpret=True))
     for j in (0, B - 1):
-        ref = np.asarray(matvec.axm_i8a_pallas(words, W[:, j:j+1]))[..., 0]
-        np.testing.assert_allclose(za[..., j], ref, rtol=1e-5, atol=1e-5)
-    V = jnp.asarray(rng.standard_normal((4, 4 * Nw, matvec._BMAX_ATXM + 5)),
-                    jnp.float32)
-    av, bv = matvec.atxm_i8_pallas(words, V)
-    a1, b1 = matvec.atxm_i8_pallas(words, V[:, :, -1:])
+        ref = np.asarray(matvec.axm_pallas(words, W[:, j:j + 1],
+                                           U[:, j:j + 1], interpret=True))
+        np.testing.assert_allclose(za[..., j], ref[..., 0], rtol=1e-5,
+                                   atol=1e-5)
+    B = matvec._AT_C_MAX // matvec._NDIG + 5
+    V = jnp.asarray(rng.standard_normal((4, 4 * Nw, B)), jnp.float32)
+    av, bv = matvec.atxm_pallas(words, V, interpret=True)
+    a1, b1 = matvec.atxm_pallas(words, V[:, :, -1:], interpret=True)
     np.testing.assert_allclose(np.asarray(av)[:, -1], np.asarray(a1)[:, 0],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(bv)[:, -1], np.asarray(b1)[:, 0],
                                rtol=1e-5, atol=1e-5)
 
 
 def test_digit_transform_helpers_roundtrip():
-    """_quant_digits_t / _fold_digits_zt / _fold_digits_t: quantize-fold
-    round-trips reconstruct the original values to digit precision at edge
-    widths (B=1 and B=5, non-power-of-two)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from gvamp_tpu.ops import matvec
+    """_digits / _fold: the radix-127 int8 digits of a float32 block
+    reconstruct it to digit precision, and _fold recombines digit products
+    like a NumPy fold, at edge widths (B=1 and B=5) along either axis."""
+    from gvamp.ops import matvec
 
     rng = np.random.default_rng(3)
+    D = matvec._NDIG
     for B in (1, 5):
-        # atx-side: V [4, Nb, B]
-        V = jnp.asarray(rng.standard_normal((4, 64, B)).astype(np.float32))
-        v8, s0 = matvec._quant_digits_t(V)
-        assert v8.shape == (4, matvec._NDIG * B, 64)
-        rec = np.zeros((4, B, 64), np.float64)
-        v8n = np.asarray(v8, np.float64)
+        X = jnp.asarray(rng.standard_normal((64, B)).astype(np.float32))
+        s0 = matvec._digit_scale(X, 0)
+        dig = matvec._digits(X, s0, 1)
+        assert dig.shape == (64, D * B) and dig.dtype == jnp.int8
         s = np.asarray(s0, np.float64)
-        for d in range(matvec._NDIG):
-            rec += v8n[:, d * B:(d + 1) * B, :] * (
-                s[None, :, None] / (127.0 ** d))
-        np.testing.assert_allclose(rec.transpose(0, 2, 1), np.asarray(V),
-                                   rtol=0, atol=float(np.abs(V).max()) * 1e-7)
-
-        # fold helpers agree with a numpy fold
-        zt = jnp.asarray(rng.integers(-1000, 1000,
-                                      (matvec._NDIG * B, 4, 32)), jnp.int32)
-        out = np.asarray(matvec._fold_digits_zt(zt, jnp.asarray(s0), B))
-        want = np.zeros((4, 32, B))
-        ztn = np.asarray(zt, np.float64)
-        for d in range(matvec._NDIG):
-            for j in range(B):
-                want[:, :, j] += ztn[d * B + j] * (s[j] / 127.0 ** d)
-        np.testing.assert_allclose(out, want, rtol=1e-6)
-
-
-@pytest.mark.parametrize("Nw,M,B,miss", [(16, 256, 2, 0.1), (8, 1024, 5, 0.0),
-                                         (16, 256, 70, 0.2)])
-def test_fused_gram_matches_composition(Nw, M, B, miss):
-    """gram_i8a_pallas == atxm_i8a(mask*(axm_i8a - colsum)) in one pass —
-    the fused analog of the reference's lmmse_mult (vamp.cpp:1074-1118)."""
-    from gvamp_tpu.ops import matvec
-
-    rng = np.random.default_rng(17)
-    words = jnp.asarray(rng.integers(0, 2**32, size=(Nw, M),
-                                     dtype=np.uint64).astype(np.uint32))
-    W = jnp.asarray(rng.standard_normal((M, B)).astype(np.float32))
-    na = jnp.asarray((rng.random((4, 4 * Nw)) > miss).astype(np.float32))
-    cu = jnp.asarray(rng.standard_normal(B).astype(np.float32))
-
-    za = matvec.axm_i8a_pallas(words, W)
-    z = (za - cu[None, None, :]) * na[:, :, None]
-    av_ref = np.asarray(matvec.atxm_i8a_pallas(words, z))
-    sv_ref = np.asarray(jnp.sum(z, axis=(0, 1)))
-
-    av, sv = matvec.gram_i8a_pallas(words, W, na, cu)
-    sc = np.abs(av_ref).max() + 1e-30
-    np.testing.assert_allclose(np.asarray(av), av_ref, rtol=0, atol=5e-6 * sc)
-    np.testing.assert_allclose(np.asarray(sv), sv_ref, rtol=0,
-                               atol=5e-6 * (np.abs(sv_ref).max() + 1e-30))
-
-
-@pytest.mark.parametrize("miss_geno", [0.0, 0.05])
-def test_fn_gram_matches_two_pass_operator(miss_geno, monkeypatch):
-    """GenoBed.fn_gram (fused Gram wrapper with the mave/msig/scale
-    corrections) equals atxm(axm(.)) on both the complete-genotype and
-    missing-genotype paths, and is None on the xla backend.  Fused is
-    opt-in since round 4 (GVAMP_FUSED_GRAM=1): the burst study showed the
-    two-pass form wins on v5e (decode-bound)."""
-    monkeypatch.setenv("GVAMP_FUSED_GRAM", "1")
-    rng = np.random.default_rng(23)
-    N, M = 256, 192
-    codes, y = random_dataset(rng, N, M, miss_geno=miss_geno)
-    geno = GenoBed.from_arrays(make_bed(codes), y, N=N, backend="pallas")
-    assert geno.geno_complete == (miss_geno == 0.0)
-    gram_fn = geno.fn_gram()
-    assert gram_fn is not None
-    X = jnp.asarray(rng.standard_normal((geno.Mpad, 3)).astype(np.float32))
-    want = np.asarray(geno.atxm(geno.axm(X)))
-    got = np.asarray(gram_fn(geno.op, X))
-    np.testing.assert_allclose(got, want, rtol=0,
-                               atol=2e-5 * (np.abs(want).max() + 1e-30))
-
-    geno_x = GenoBed.from_arrays(make_bed(codes), y, N=N, backend="xla")
-    assert geno_x.fn_gram() is None
-
-
-def test_general_fused_gram_and_shared_scale_ax():
-    """gram_i8_pallas == atxm_i8(na*(axm_i8)) and axm_i8s == axm_i8 —
-    the missing-genotype fused kernels (shared (W,-U) digit scale)."""
-    from gvamp_tpu.ops import matvec
-
-    rng = np.random.default_rng(29)
-    Nw, M, B = 16, 512, 3
-    words = jnp.asarray(rng.integers(0, 2**32, size=(Nw, M),
-                                     dtype=np.uint64).astype(np.uint32))
-    W = jnp.asarray(rng.standard_normal((M, B)).astype(np.float32))
-    mave = jnp.asarray(rng.uniform(0, 2, M).astype(np.float32))
-    U = mave[:, None] * W
-    na = jnp.asarray((rng.random((4, 4 * Nw)) > 0.1).astype(np.float32))
-
-    z0 = np.asarray(matvec.axm_i8_pallas(words, W, U))
-    z1 = np.asarray(matvec.axm_i8s_pallas(words, W, U))
-    np.testing.assert_allclose(z1, z0, rtol=0,
-                               atol=2e-6 * (np.abs(z0).max() + 1e-30))
-
-    z = jnp.asarray(z0) * na[:, :, None]
-    av_ref, bv_ref = matvec.atxm_i8_pallas(words, z)
-    av, bv = matvec.gram_i8_pallas(words, W, U, na)
-    np.testing.assert_allclose(
-        np.asarray(av), np.asarray(av_ref), rtol=0,
-        atol=5e-6 * (float(jnp.max(jnp.abs(av_ref))) + 1e-30))
-    np.testing.assert_allclose(
-        np.asarray(bv), np.asarray(bv_ref), rtol=0,
-        atol=5e-6 * (float(jnp.max(jnp.abs(bv_ref))) + 1e-30))
-
-
-def test_aat_gram_kernels_match_composition():
-    """gram_aat_i8[a]_pallas == axm(msig2*(atxm_a - mave*atxm_b)) — the
-    fused dual (XXT) Gram kernels, general and a-only variants."""
-    from gvamp_tpu.ops import matvec
-
-    rng = np.random.default_rng(43)
-    Nw, M, B = 16, 512, 3
-    words_m = np.asarray(rng.integers(0, 2**32, size=(Nw, M),
-                                      dtype=np.uint64).astype(np.uint32))
-    V = jnp.asarray(rng.standard_normal((4, 4 * Nw, B)).astype(np.float32))
-    mave = jnp.asarray(rng.uniform(0, 2, M).astype(np.float32))
-    msig2 = jnp.asarray(rng.uniform(0.5, 2, M).astype(np.float32))
-
-    # general kernel vs two-pass composition (missing codes present)
-    wm = jnp.asarray(words_m)
-    av, bv = matvec.atxm_i8_pallas(wm, V)
-    t = msig2[:, None] * (av - mave[:, None] * bv)
-    z_ref = np.asarray(matvec.axm_i8_pallas(wm, t, mave[:, None] * t))
-    z = np.asarray(matvec.gram_aat_i8_pallas(wm, V, mave, msig2))
-    np.testing.assert_allclose(z, z_ref, rtol=0,
-                               atol=5e-6 * (np.abs(z_ref).max() + 1e-30))
-
-    # a-only kernel vs the general kernel on complete genotypes
-    lo = words_m & 0x55555555
-    hi = (words_m >> 1) & 0x55555555
-    wc = jnp.asarray((words_m | ((lo & ~hi) << 1)).astype(np.uint32))
-    z_g = np.asarray(matvec.gram_aat_i8_pallas(wc, V, mave, msig2))
-    z_a = np.asarray(matvec.gram_aat_i8a_pallas(wc, V, mave, msig2))
-    np.testing.assert_allclose(z_a, z_g, rtol=0,
-                               atol=2e-5 * (np.abs(z_g).max() + 1e-30))
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("seed,N,M,miss_geno,miss_phen,B", [
-    (101, 123, 77, 0.0, 0.0, 1),
-    (102, 257, 333, 0.07, 0.1, 3),
-    (103, 64, 501, 0.02, 0.0, 7),     # M > N (dual regime), odd M
-    (104, 399, 129, 0.3, 0.25, 2),    # heavy missingness
-    (105, 130, 130, 0.0, 0.15, 9),    # square, phen NAs only
-])
-def test_gram_operators_randomized_shapes(seed, N, M, miss_geno,
-                                          miss_phen, B, monkeypatch):
-    """Seeded odd-shape sweep: the fused primal and dual Gram operators
-    must equal their two-pass compositions through the full data-layer
-    padding/standardization stack (the parametrized kernel tests use
-    round tile-multiple shapes only).  The primal fused Gram defaulted to
-    OFF in round 4 (it loses on hardware, fn_gram) — force it on here:
-    the kernels stay available behind GVAMP_FUSED_GRAM=1 and must remain
-    correct."""
-    monkeypatch.setenv("GVAMP_FUSED_GRAM", "1")
-    rng = np.random.default_rng(seed)
-    codes, y = random_dataset(rng, N, M, miss_geno=miss_geno,
-                              miss_phen=miss_phen)
-    geno = GenoBed.from_arrays(make_bed(codes), y, N=N, backend="pallas")
-    X = jnp.asarray(rng.standard_normal((geno.Mpad, B)).astype(np.float32))
-
-    gram_fn = geno.fn_gram()
-    assert gram_fn is not None
-    want = np.asarray(geno.atxm(geno.axm(X)))
-    got = np.asarray(gram_fn(geno.op, X))
-    np.testing.assert_allclose(got, want, rtol=0,
-                               atol=3e-5 * (np.abs(want).max() + 1e-30))
-
-    gram_aat = geno.fn_gram_aat()
-    assert gram_aat is not None
-    U = jnp.asarray(rng.standard_normal(
-        geno.y_planar.shape + (B,)).astype(np.float32))
-    Uf = U * geno.n_mask_planar[:, :, None]
-    want_n = np.asarray(geno.axm(geno.atxm(Uf)))
-    got_n = np.asarray(gram_aat(geno.op, Uf))
-    np.testing.assert_allclose(got_n, want_n, rtol=0,
-                               atol=3e-5 * (np.abs(want_n).max() + 1e-30))
-
-
-@pytest.mark.slow
-def test_multi_gram_per_column_randomized(monkeypatch):
-    """MultiPhen.fn_gram with a trait-mixing column map equals the
-    two-pass per-column operator (odd sizes, per-trait NA patterns).
-    Forced on via GVAMP_FUSED_GRAM=1 (default-off since round 4)."""
-    from gvamp_tpu import multi, sim
-
-    monkeypatch.setenv("GVAMP_FUSED_GRAM", "1")
-    rng = np.random.default_rng(44)
-    N, M, T, P = 201, 155, 3, 2
-    codes = sim.random_genotypes(rng, M, N, miss_rate=0.04)
-    geno = GenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
-                               standardize_phen=False, backend="pallas")
-    ys = []
-    for t in range(T):
-        y = rng.standard_normal(N)
-        y[rng.choice(N, 10 + 7 * t, replace=False)] = np.nan
-        ys.append(y)
-    mp = multi.MultiPhen.build(geno, ys)
-    gram_fn = mp.fn_gram()
-    assert gram_fn is not None
-    axm_fn, atxm_fn = mp.fns()
-    cols = np.concatenate([np.arange(T), np.repeat(np.arange(T), P)])
-    X = jnp.asarray(rng.standard_normal(
-        (geno.Mpad, len(cols))).astype(np.float32))
-    want = np.asarray(atxm_fn(mp.op, axm_fn(mp.op, X, cols), cols))
-    got = np.asarray(gram_fn(mp.op, X, cols))
-    np.testing.assert_allclose(got, want, rtol=0,
-                               atol=3e-5 * (np.abs(want).max() + 1e-30))
+        rec = sum(np.asarray(dig, np.float64)[:, d * B:(d + 1) * B]
+                  * (s / 127.0 ** d) for d in range(D))
+        np.testing.assert_allclose(rec, np.asarray(X), rtol=0,
+                                   atol=float(np.abs(X).max()) * 1e-7)
+        Z = rng.integers(-1000, 1000, (D * B, 32))
+        want = sum(Z[d * B:(d + 1) * B].astype(np.float64)
+                   * (s[:, None] / 127.0 ** d) for d in range(D))
+        got0 = np.asarray(matvec._fold(jnp.asarray(Z, jnp.int32), s0, B, 0))
+        got1 = np.asarray(matvec._fold(jnp.asarray(Z.T, jnp.int32), s0, B, 1))
+        np.testing.assert_allclose(got0, want, rtol=1e-6)
+        np.testing.assert_allclose(got1, want.T, rtol=1e-6)

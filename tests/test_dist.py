@@ -23,8 +23,8 @@ import sys
 import numpy as np
 import pytest
 
-from gvamp_tpu import dist, sim
-from gvamp_tpu.io import plink, vecio
+from gvamp import dist, sim
+from gvamp.io import plink, vecio
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,7 +55,7 @@ def ds(tmp_path_factory):
     codes = sim.random_genotypes(rng, M, N, miss_rate=0.01)
     plink.write_bed(str(d / "t.bed"), codes)
     import jax.numpy as jnp
-    from gvamp_tpu.data import GenoBed
+    from gvamp.data import GenoBed
     from tests_shim import make_bed_bytes
     geno = GenoBed.from_arrays(make_bed_bytes(codes), np.zeros(N), N=N,
                                standardize_phen=False, dtype=jnp.float64)
@@ -85,7 +85,7 @@ def _spawn(args, n_devices, extra_env=None):
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env.update(extra_env or {})
     code = ("import jax; jax.config.update('jax_platforms', 'cpu'); "
-            "import sys; from gvamp_tpu import cli; cli.main(sys.argv[1:])")
+            "import sys; from gvamp import cli; cli.main(sys.argv[1:])")
     return subprocess.Popen([sys.executable, "-c", code] + args,
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -135,7 +135,7 @@ def test_two_process_multi_trait(ds):
     single-process multi-trait per-trait estimates."""
     rng = np.random.default_rng(77)
     import jax.numpy as jnp
-    from gvamp_tpu.data import GenoBed
+    from gvamp.data import GenoBed
     codes_geno = GenoBed.from_files(str(ds["dir"] / "t.bed"), None,
                                     N=ds["N"], Mt=ds["M"],
                                     standardize_phen=False,
@@ -206,7 +206,7 @@ def test_two_process_checkpoint_no_deadlock(ds):
     outs = [p.communicate(timeout=600)[0] for p in procs]
     for p, o in zip(procs, outs):
         assert p.returncode == 0, o
-    from gvamp_tpu import ckpt, multi
+    from gvamp import ckpt, multi
     meta = ckpt.read_meta(ck)
     assert meta["model"] == "linear" and meta["T"] == 2
     assert int(meta["it"]) == iters

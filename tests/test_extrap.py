@@ -9,9 +9,8 @@ exits at the same cg_err_tol, so the VAMP trajectory stays in the same
 solve-accuracy class as the plain warm start (the reference cold-starts
 every CG, vamp.cpp:594-596 — both warm starts are extensions).
 
-Hardware effect (BASELINE.md round 5): steady-state block CG drops from
-two iterations to ONE on the bandwidth-bound config (4 -> 2 packed
-reads/iteration, 0.082 -> 0.055 s/it).
+Effect: steady-state block CG drops from two iterations to ONE on bench
+config B (4 -> 2 packed reads/iteration).
 """
 
 import numpy as np
@@ -19,8 +18,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gvamp_tpu import cg, linear, multi, sim
-from gvamp_tpu.data import GenoBed
+from gvamp import cg, linear, multi, sim
+from gvamp.data import GenoBed
 from test_data_layer import make_bed
 
 
@@ -148,7 +147,7 @@ def test_resume_pre_extrap_checkpoint(tmp_path):
     extrapolation theta guard then disarms until two fresh exits exist."""
     import json
 
-    from gvamp_tpu import ckpt
+    from gvamp import ckpt
 
     rng = np.random.default_rng(3)
     N, M = 200, 128

@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gvamp_tpu.data import GenoBed
-from gvamp_tpu import linear, probit, robust, sim
+from gvamp.data import GenoBed
+from gvamp import linear, probit, robust, sim
 from test_data_layer import make_bed
 
 # engine-scale tests: excluded from the <5-min core tier (README: test tiers)
@@ -75,7 +75,7 @@ def test_fuzz_engines_stay_finite(seed, N, M, miss, model, dtype, h2):
 @pytest.mark.parametrize("seed,T", [(41, 3), (42, 2)])
 def test_fuzz_multi_trait_stays_finite(seed, T):
     """Multi-trait engine fuzz: odd sizes, per-trait NA patterns, f32."""
-    from gvamp_tpu import multi
+    from gvamp import multi
 
     rng = np.random.default_rng(seed)
     N, M = 311 + seed, 197 + 3 * seed

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gvamp_tpu.data import GenoBed
-from gvamp_tpu import linear, sim
+from gvamp.data import GenoBed
+from gvamp import linear, sim
 from test_data_layer import make_bed
 
 # engine-scale tests: excluded from the <5-min core tier (README: test tiers)
@@ -96,7 +96,7 @@ def test_sample_window_matches_reference_semantics():
     (reference data.cpp:728-801, 825-832)."""
     import numpy as np
     import jax.numpy as jnp
-    from gvamp_tpu.data import GenoBed
+    from gvamp.data import GenoBed
     from helpers import DenseOracle, random_dataset
     from tests_shim import make_bed_bytes
 
@@ -134,7 +134,7 @@ def test_cross_val_and_gamma_damp_smoke():
 
 def test_state_evolution_predicts_alpha1():
     """SE alpha_bar ~ realized alpha1 once the prior/precisions stabilize."""
-    from gvamp_tpu.prior import Prior
+    from gvamp.prior import Prior
 
     geno, beta, vars_t, probs_t = build_sim(N=700, M=256)
     cfg = linear.VampConfig(max_iter=6, rho=0.3, gam1_init=1e-8,
@@ -197,45 +197,6 @@ def test_phase_timers_match_fused():
     for nm in ("denoise", "z1_project", "lmmse_cg", "noise_em", "finish"):
         assert f"phase_ms_{nm}" in h_p[-1]
         assert float(h_p[-1][f"phase_ms_{nm}"]) > 0.0
-
-
-@pytest.mark.parametrize("miss_rate", [0.0, 0.02])
-def test_fused_gram_cg_matches_two_pass(monkeypatch, miss_rate):
-    """The fused-Gram CG (one packed pass/iteration) reproduces the
-    two-pass trajectory on both the complete- and missing-genotype paths —
-    gram is a pure traffic optimization of reference lmmse_mult
-    (vamp.cpp:1074-1118), not a semantic change."""
-    rng = np.random.default_rng(31)
-    N, M, CV, h2 = 500, 320, 20, 0.6
-    codes = sim.random_genotypes(rng, M, N, miss_rate=miss_rate)
-    vars_t, probs_t = sim.two_group_prior(M, CV, h2)
-    beta = sim.simulate_mixture(rng, M, vars_t, probs_t)
-
-    def build():
-        g = GenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
-                                standardize_phen=False, backend="pallas")
-        return g
-
-    monkeypatch.setenv("GVAMP_FUSED_GRAM", "1")   # default is two-pass (r4)
-    g0 = build()
-    y = sim.simulate_linear_phenotype(g0, beta, 1 / (1 - h2), rng)
-    g0.set_phen(y)
-    assert g0.fn_gram() is not None
-
-    cfg = linear.VampConfig(max_iter=4, rho=0.3, gam1_init=1e-8,
-                            gamw_init=2.0, seed=5)
-    x_g, _, h_g = linear.infer(g0, cfg, probs_t, vars_t, verbose=False)
-
-    monkeypatch.setattr(GenoBed, "fn_gram", lambda self: None)
-    g1 = build()
-    g1.set_phen(y)
-    x_t, _, h_t = linear.infer(g1, cfg, probs_t, vars_t, verbose=False)
-
-    np.testing.assert_allclose(x_g, x_t, rtol=0,
-                               atol=5e-5 * (np.abs(x_t).max() + 1e-30))
-    for k in ("gam1", "gam2", "gamw", "alpha2"):
-        np.testing.assert_allclose(float(h_g[-1][k]), float(h_t[-1][k]),
-                                   rtol=2e-4)
 
 
 def test_gram_tracking_matches_true_init_mult():

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gvamp_tpu import linear, multi, sim
-from gvamp_tpu.data import GenoBed
+from gvamp import linear, multi, sim
+from gvamp.data import GenoBed
 from test_data_layer import make_bed
 import pytest
 
@@ -65,8 +65,8 @@ def test_multi_trait_recovers_signals():
 
 def test_multi_trait_cli(tmp_path):
     """--phen-files a,b,c triggers the joint multi-trait run."""
-    from gvamp_tpu import cli
-    from gvamp_tpu.io import plink, vecio
+    from gvamp import cli
+    from gvamp.io import plink, vecio
 
     geno, codes, ys, betas, priors = _build(N=400, M=192, T=2, h2s=(0.8, 0.6))
     plink.write_bed(str(tmp_path / "m.bed"), codes)
@@ -120,7 +120,7 @@ def test_multi_zmodel_shard_invariance():
     matvec/psum machinery as the linear engine — reference collectives are
     model-agnostic, vamp_probit.cpp / vamp_Huber.cpp)."""
     import jax
-    from gvamp_tpu import probit, robust
+    from gvamp import probit, robust
 
     rng = np.random.default_rng(61)
     N, M, T = 300, 192, 2
@@ -168,7 +168,7 @@ def test_multi_zmodel_shard_invariance():
     np.testing.assert_allclose(xs1, xs8, rtol=2e-5, atol=1e-9)
 
     # Huber: 3 iterations only — its gamma trajectory chaotically amplifies
-    # ulp-level reduction-order differences past that (docs/ROUND3.md);
+    # ulp-level reduction-order differences past that;
     # use_slq=False for the same reason as the probit block above
     rcfg = robust.RobustConfig(max_iter=3, rho=0.25, gam1_init=1e-8, seed=3,
                                stop_criteria_thr=0.0, use_slq=False)
@@ -183,7 +183,7 @@ def test_multi_zmodel_shard_invariance():
 
 def test_multi_probit_matches_single_runs():
     """Joint multi-trait probit == independent single probit runs."""
-    from gvamp_tpu import probit
+    from gvamp import probit
 
     rng = np.random.default_rng(41)
     N, M, T = 500, 256, 2
@@ -215,7 +215,7 @@ def test_multi_probit_matches_single_runs():
 
 def test_multi_huber_matches_single_runs():
     """Joint multi-trait Huber == independent single robust runs."""
-    from gvamp_tpu import robust
+    from gvamp import robust
 
     rng = np.random.default_rng(51)
     N, M, T = 500, 256, 2
@@ -270,7 +270,7 @@ def test_multi_deflation_matches_plain():
     assert (hd[-1]["cg_iters"] <= h0[-1]["cg_iters"] + 1).all()
 
     # probit multi engine takes the same path through _make_zmodel_lmmse
-    from gvamp_tpu import probit as probit_mod
+    from gvamp import probit as probit_mod
     rng = np.random.default_rng(3)
     ys_bin = [(np.sign(ys[t] - np.nanmean(ys[t])) + 1) / 2 for t in range(2)]
     mpb = multi.MultiPhen.build(geno, ys_bin, standardize=False)
@@ -285,7 +285,7 @@ def test_multi_deflation_matches_plain():
 
 
 def test_multi_complete_fast_path_matches_general():
-    """Complete genotypes route the multi engine onto the a-only kernels;
+    """Complete genotypes route the multi engine onto the complete path;
     results must match the general path exactly (b-contraction collapses
     to per-column scalars)."""
     rng = np.random.default_rng(31)
@@ -302,21 +302,20 @@ def test_multi_complete_fast_path_matches_general():
                             gamw_init=2.0, stop_criteria_thr=0.0)
     outs = {}
     for name, force_general in (("fast", False), ("general", True)):
-        # pallas on CPU = interpret-mode kernels; forcing _complete=False
-        # routes the general (a+b) kernels at the same digit precision
-        # pallas+f64 is rejected since round 4 (no silent downgrade);
-        # the kernels are digit-quantized regardless, so f32 containers
-        # exercise the identical routing
+        # the kernels in the Pallas interpreter; forcing _complete=False
+        # routes the general (a+b) kernels at the same digit precision.
+        # The kernels are float32 only (float64 is refused), so float32
+        # containers exercise the identical routing
         geno = GenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
                                    standardize_phen=False,
-                                   backend="pallas")
+                                   backend="interpret")
         assert geno.geno_complete
         if force_general:
             geno._complete = False
         mp = multi.MultiPhen.build(geno, ys, standardize=False)
         outs[name] = multi.infer(mp, cfg, probs_t, vars_t, verbose=False)
     # identical routing algebra; only int8 digit rounding differs between
-    # the a-only and a+b kernels (~1e-7 of colmax)
+    # the complete and general kernels (~1e-7 of colmax)
     np.testing.assert_allclose(outs["fast"][0], outs["general"][0],
                                rtol=1e-4, atol=1e-8)
     corr = np.corrcoef(outs["fast"][0].ravel(),
@@ -324,53 +323,12 @@ def test_multi_complete_fast_path_matches_general():
     assert corr > 0.9999999
 
 
-def test_multi_fused_gram_matches_two_pass(monkeypatch):
-    """Multi-trait block-CG with the fused per-column Gram kernel (one
-    packed pass, per-trait NA masks) reproduces the two-pass trajectory."""
-    rng = np.random.default_rng(41)
-    N, M, T = 400, 256, 3
-    codes = sim.random_genotypes(rng, M, N, miss_rate=0.01)
-    h2s = (0.7, 0.5, 0.4)
-    ys = []
-    geno0 = GenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
-                                standardize_phen=False, backend="pallas")
-    vars_t, probs_t = sim.two_group_prior(M, 15, 0.6)
-    for t in range(T):
-        beta = sim.simulate_mixture(rng, M, vars_t, probs_t)
-        y = sim.simulate_linear_phenotype(geno0, beta, 1 / (1 - h2s[t]), rng)
-        if t == 1:
-            y[rng.choice(N, 25, replace=False)] = np.nan
-        ys.append(y)
-
-    cfg = linear.VampConfig(max_iter=3, rho=0.3, seed=3,
-                            stop_criteria_thr=0.0)
-
-    def run():
-        g = GenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
-                                standardize_phen=False, backend="pallas")
-        mp = multi.MultiPhen.build(g, ys, standardize=False)
-        return multi.infer(mp, cfg, probs_t, vars_t, verbose=False)
-
-    monkeypatch.setenv("GVAMP_FUSED_GRAM", "1")   # default is two-pass (r4)
-    assert multi.MultiPhen.build(geno0, ys, standardize=False).fn_gram() \
-        is not None
-    x_f, _, h_f = run()
-    monkeypatch.setattr(multi.MultiPhen, "fn_gram", lambda self: None)
-    x_t, _, h_t = run()
-
-    np.testing.assert_allclose(np.asarray(x_f), np.asarray(x_t), rtol=0,
-                               atol=5e-5 * (np.abs(np.asarray(x_t)).max() + 1e-30))
-    for t in range(T):
-        np.testing.assert_allclose(float(h_f[-1]["gam1"][t]),
-                                   float(h_t[-1]["gam1"][t]), rtol=2e-4)
-
-
 def test_multi_zmodel_stab_gamma_identity():
     """--stab-gamma in the multi-trait z-model engines: the it-2 per-trait
     gam1/tau1 recurrences damp to old^(1-s) * new^s of the undamped run
     (same identity as the single-trait tests; covers both wiring sites in
     multi.py's probit and Huber steps)."""
-    from gvamp_tpu import probit, robust
+    from gvamp import probit, robust
 
     rng = np.random.default_rng(29)
     N, M, T = 300, 192, 2

@@ -1,11 +1,11 @@
-"""Native C++ loader parity with the numpy layout path (gvamp_tpu/native)."""
+"""Native C++ loader parity with the numpy layout path (gvamp/native)."""
 
 import numpy as np
 import pytest
 
-from gvamp_tpu import native
-from gvamp_tpu.io import plink
-from gvamp_tpu.ops.layout import PlanarLayout
+from gvamp import native
+from gvamp.io import plink
+from gvamp.ops.layout import PlanarLayout
 
 pytestmark = pytest.mark.skipif(native.get_lib() is None,
                                 reason="no C++ toolchain")

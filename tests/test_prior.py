@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gvamp_tpu.prior import Prior, g1, g1d, update_prior, initialize_prior
+from gvamp.prior import Prior, g1, g1d, update_prior, initialize_prior
 
 
 def np_g1(y, gam1, probs, vars_):
@@ -149,7 +149,7 @@ def test_initialize_prior_default_23():
 def test_pip_matches_unshifted_bayes_posterior():
     """pip == P(slab | r) by direct (unshifted) Bayes in f64, and behaves:
     0 at r=0 under a dominant spike, -> 1 for |r| >> noise."""
-    from gvamp_tpu.prior import pip
+    from gvamp.prior import pip
 
     probs = np.array([0.9, 0.07, 0.03])
     vars_ = np.array([0.0, 0.5, 5.0])
@@ -169,7 +169,7 @@ def test_pip_matches_unshifted_bayes_posterior():
 
 def test_pip_ignores_merged_zero_prob_slots():
     """A merged slot (prob 0, duplicated var) must not perturb the pip."""
-    from gvamp_tpu.prior import pip
+    from gvamp.prior import pip
 
     r = jnp.linspace(-4.0, 4.0, 17)
     base = Prior(jnp.array([0.8, 0.2]), jnp.array([0.0, 1.0]))

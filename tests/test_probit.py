@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import scipy.stats as st
 
-from gvamp_tpu import probit, sim
-from gvamp_tpu.data import GenoBed
+from gvamp import probit, sim
+from gvamp.data import GenoBed
 from test_data_layer import make_bed
 import pytest
 

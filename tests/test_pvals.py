@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import pytest
 import scipy.stats as st
 
-from gvamp_tpu.data import GenoBed
-from gvamp_tpu.ops import pvals as pv
+from gvamp.data import GenoBed
+from gvamp.ops import pvals as pv
 from helpers import DenseOracle, random_dataset
 from test_data_layer import make_bed
 
@@ -94,7 +94,7 @@ def test_true_associations_have_small_pvalues():
                                standardize_phen=False, dtype=jnp.float64)
     beta = np.zeros(M)
     beta[:5] = 0.5
-    from gvamp_tpu import sim
+    from gvamp import sim
     y = sim.simulate_linear_phenotype(geno, beta, 20.0, rng)
     geno.set_phen(y)
     p = pv.loo_pvals(geno, jnp.zeros_like(geno.y_planar), jnp.zeros(geno.Mpad))
@@ -114,7 +114,7 @@ def test_loo_pvals_f64_with_f32_containers():
     beta = np.zeros(M)
     beta[0] = 0.26  # rxy ~ 0.25 at N=4000 -> t ~ 16 -> p ~ 1e-60:
     #                 deep below the f32 underflow threshold (~1e-38)
-    from gvamp_tpu import sim
+    from gvamp import sim
     y = sim.simulate_linear_phenotype(geno, beta, 1.0, rng)
     geno.set_phen(y)
     p = pv.loo_pvals(geno, jnp.zeros_like(geno.y_planar),

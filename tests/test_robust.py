@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gvamp_tpu import robust, sim
-from gvamp_tpu.data import GenoBed
+from gvamp import robust, sim
+from gvamp.data import GenoBed
 from test_data_layer import make_bed
 import pytest
 

@@ -14,10 +14,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gvamp_tpu import cli, linear, probit, robust, sim
-from gvamp_tpu.data import GenoBed
-from gvamp_tpu.options import Options
-from gvamp_tpu.io import plink, vecio
+from gvamp import cli, linear, probit, robust, sim
+from gvamp.data import GenoBed
+from gvamp.options import Options
+from gvamp.io import plink, vecio
 from test_data_layer import make_bed
 from test_linear_vamp import build_sim
 
@@ -133,8 +133,8 @@ def test_resume_matches_uninterrupted_probit():
 def test_resume_matches_uninterrupted_multi(tmp_path):
     """Multi-trait resume: 2 iterations + resume(2) == 4 uninterrupted,
     with the state round-tripped through the .npz checkpoint layer."""
-    from gvamp_tpu import multi
-    from gvamp_tpu.ckpt import save_state, load_state
+    from gvamp import multi
+    from gvamp.ckpt import save_state, load_state
 
     rng = np.random.default_rng(11)
     N, M, T = 300, 128, 2
@@ -310,7 +310,7 @@ def test_red_reduced_subset_converges():
 def test_multi_scan_equality():
     """sync-every=2 (lax.scan throughput mode) must equal per-iteration
     dispatch for the multi-trait linear engine."""
-    from gvamp_tpu import multi
+    from gvamp import multi
     rng = np.random.default_rng(5)
     N, M, T = 500, 128, 3
     codes = sim.random_genotypes(rng, M, N, miss_rate=0.02)
@@ -404,7 +404,7 @@ def test_load_state_backfills_pre_round3_linear_checkpoint(tmp_path):
     """A checkpoint written before the round-3 state fields existed
     (mu_probe_n / gmu / gmu_n / warm-start fields) must load with safe
     cold-start defaults instead of raising."""
-    from gvamp_tpu.ckpt import save_state, load_state
+    from gvamp.ckpt import save_state, load_state
 
     geno, beta, vars_t, probs_t = build_sim(N=300, M=128)
     cfg = linear.VampConfig(max_iter=2, rho=0.3, seed=1)
@@ -488,7 +488,7 @@ def test_probit_both_mode_multi_trait_with_covariates(tmp_path, capsys):
 def test_sync_every_partial_chunk_stops_at_max_iter():
     """sync_every that does not divide max_iter must still stop state at
     EXACTLY max_iter (a full trailing scan chunk used to overrun it)."""
-    from gvamp_tpu import multi
+    from gvamp import multi
 
     geno, beta, vars_t, probs_t = build_sim(N=300, M=128)
     cfg = linear.VampConfig(max_iter=4, rho=0.3, seed=2,
@@ -512,8 +512,8 @@ def test_sync_every_partial_chunk_stops_at_max_iter():
 def test_resume_multi_zmodels_roundtrip(tmp_path):
     """ProbitMultiState / HuberMultiState checkpoint round-trip + resumed
     tail equality (the multi-linear test covers MultiState)."""
-    from gvamp_tpu import multi, robust
-    from gvamp_tpu.ckpt import save_state, load_state
+    from gvamp import multi, robust
+    from gvamp.ckpt import save_state, load_state
 
     rng = np.random.default_rng(13)
     N, M, T = 300, 96, 2
@@ -554,8 +554,8 @@ def test_resume_multi_zmodels_roundtrip(tmp_path):
 def test_load_state_backfills_multi_warm_start_fields(tmp_path):
     """Backfilled multi-trait warm-start fields must have the [Mp, T*P]
     / [Mp, T+T*P] / [T] shapes (not the single-trait ones)."""
-    from gvamp_tpu import multi
-    from gvamp_tpu.ckpt import save_state, load_state
+    from gvamp import multi
+    from gvamp.ckpt import save_state, load_state
 
     rng = np.random.default_rng(5)
     N, M, T = 200, 96, 3

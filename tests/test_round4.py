@@ -1,14 +1,14 @@
 """Round-4 feature tests: f64 backend honesty (no silent precision
-downgrade through the pallas int8 kernels), and the auto-backend f64
-routing to the true-f64 XLA decode path."""
+downgrade through the int8-digit kernels), and the auto-backend f64
+routing to the true-f64 XLA reference."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gvamp_tpu.data import GenoBed, _pick_backend
-from gvamp_tpu.options import Options
-from helpers import random_dataset
+from gvamp.data import GenoBed, _pick_backend
+from gvamp.options import Options
+from helpers import KERNEL, random_dataset
 from test_data_layer import make_bed
 
 BASE_ARGS = ["--run-mode", "infere", "--bed-file", "x.bed",
@@ -24,11 +24,18 @@ def test_options_reject_pallas_f64():
             BASE_ARGS + ["--backend", "pallas", "--dtype", "float64"]).check()
 
 
-def test_options_accept_xla_f64_and_pallas_f32():
+def test_options_accept_xla_f64_and_pallas_f32(monkeypatch):
+    """xla + float64 passes everywhere; pallas + float32 passes where JAX's
+    platform is a GPU (the kernels compile only there) and is refused on
+    this CPU host."""
+    import jax
     Options.from_args(BASE_ARGS + ["--backend", "xla",
                                    "--dtype", "float64"]).check()
-    Options.from_args(BASE_ARGS + ["--backend", "pallas",
-                                   "--dtype", "float32"]).check()
+    args = BASE_ARGS + ["--backend", "pallas", "--dtype", "float32"]
+    with pytest.raises(SystemExit, match="needs a GPU"):
+        Options.from_args(args).check()
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    Options.from_args(args).check()
 
 
 def test_pick_backend_routes_f64_to_xla():
@@ -53,24 +60,6 @@ def test_container_honors_f64_auto():
                             backend="pallas")
 
 
-def test_fused_gram_default_off(monkeypatch):
-    """Round-4 routing: the primal fused Gram is opt-in (burst study:
-    two-pass wins on v5e, BENCH_r04/docs/ROOFLINE.md); the dual fused
-    Gram stays default-on (it wins)."""
-    monkeypatch.delenv("GVAMP_FUSED_GRAM", raising=False)
-    monkeypatch.delenv("GVAMP_NO_FUSED_GRAM", raising=False)
-    rng = np.random.default_rng(1)
-    codes, y = random_dataset(rng, 64, 32, miss_geno=0.0)
-    geno = GenoBed.from_arrays(make_bed(codes), y, N=64, backend="pallas")
-    assert geno.fn_gram() is None
-    assert geno.fn_gram_aat() is not None
-    monkeypatch.setenv("GVAMP_FUSED_GRAM", "1")
-    assert geno.fn_gram() is not None
-    monkeypatch.setenv("GVAMP_NO_FUSED_GRAM", "1")
-    assert geno.fn_gram() is None
-    assert geno.fn_gram_aat() is None
-
-
 def test_onsager_tol_1e6_matches_1e8():
     """The relaxed probe exit (onsager_tol 1e-6 vs the reference's 1e-8,
     vamp.cpp:1174-1193) reproduces the alpha2 trajectory far below the
@@ -78,7 +67,7 @@ def test_onsager_tol_1e6_matches_1e8():
     import sys
     sys.path.insert(0, "tests")
     from tests_shim import make_bed_bytes
-    from gvamp_tpu import linear, sim
+    from gvamp import linear, sim
 
     rng = np.random.default_rng(5)
     N, M = 1000, 512
@@ -86,7 +75,7 @@ def test_onsager_tol_1e6_matches_1e8():
     vars_t, probs_t = sim.two_group_prior(M, 25, 0.6)
     beta = sim.simulate_mixture(rng, M, vars_t, probs_t)
     g = GenoBed.from_arrays(make_bed_bytes(codes), np.zeros(N), N=N,
-                            standardize_phen=False, backend="pallas")
+                            standardize_phen=False, backend=KERNEL)
     y = sim.simulate_linear_phenotype(g, beta, 2.5, rng)
     g.set_phen(y)
 
@@ -115,7 +104,7 @@ def test_fold_noise_matches_explicit_pass():
     import sys
     sys.path.insert(0, "tests")
     from tests_shim import make_bed_bytes
-    from gvamp_tpu import linear, sim
+    from gvamp import linear, sim
 
     rng = np.random.default_rng(11)
     N, M = 800, 384
@@ -123,7 +112,7 @@ def test_fold_noise_matches_explicit_pass():
     vars_t, probs_t = sim.two_group_prior(M, 20, 0.6)
     beta = sim.simulate_mixture(rng, M, vars_t, probs_t)
     g = GenoBed.from_arrays(make_bed_bytes(codes), np.zeros(N), N=N,
-                            standardize_phen=False, backend="pallas")
+                            standardize_phen=False, backend=KERNEL)
     y = sim.simulate_linear_phenotype(g, beta, 2.5, rng)
     g.set_phen(y)
 
@@ -144,7 +133,7 @@ def test_fold_noise_matches_explicit_pass():
 def test_cg_rider_forward_product():
     """solve_block's rider columns return the exact forward product A@X and
     leave the solve itself bit-identical to the rider-free call."""
-    from gvamp_tpu import cg
+    from gvamp import cg
 
     rng = np.random.default_rng(7)
     Mdim, Ndim, B, R = 96, 64, 2, 1
@@ -185,7 +174,7 @@ def _zmodel_ab(module, cfg_cls, phen_fn, iters=10):
     import sys
     sys.path.insert(0, "tests")
     from tests_shim import make_bed_bytes
-    from gvamp_tpu import sim
+    from gvamp import sim
 
     rng = np.random.default_rng(19)
     N, M = 600, 256
@@ -213,7 +202,7 @@ def test_probit_z2_tracking_matches_explicit():
     """Tracked z2 (zmu += alpha_0 A p_0 through the CG; refresh-reset with
     the Gram product) reproduces the explicit z2 = A x2 pass trajectory
     across a gram_refresh tick (10 its > refresh=8)."""
-    from gvamp_tpu import probit, sim
+    from gvamp import probit, sim
 
     outs = _zmodel_ab(
         probit, probit.ProbitConfig,
@@ -228,7 +217,7 @@ def test_probit_z2_tracking_matches_explicit():
 
 
 def test_huber_z2_tracking_matches_explicit():
-    from gvamp_tpu import robust, sim
+    from gvamp import robust, sim
 
     def phen(g, b, rng):
         xpad = g.pad_m(b * np.sqrt(g.N))
@@ -246,7 +235,7 @@ def test_cg_plateau_exit():
     """The stagnation exit freezes columns that stop improving (an
     ill-conditioned operator at a tolerance below its reachable residual)
     and never fires on a converging solve."""
-    from gvamp_tpu import cg
+    from gvamp import cg
 
     rng = np.random.default_rng(3)
     Mdim, Ndim = 128, 96

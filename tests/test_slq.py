@@ -1,4 +1,4 @@
-"""Stochastic Lanczos quadrature (gvamp_tpu/slq.py) vs dense exact algebra.
+"""Stochastic Lanczos quadrature (gvamp/slq.py) vs dense exact algebra.
 
 The SLQ basis replaces the reference's per-iteration Onsager probe CG
 (g2d_onsager, vamp.cpp:871-889) and the noise-EM trace reuse
@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gvamp_tpu import slq
+from gvamp import slq
 
 
 def _dense_spd(n, seed, rank=None):

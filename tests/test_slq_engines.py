@@ -13,8 +13,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gvamp_tpu import linear, multi, probit, robust, sim, slq
-from gvamp_tpu.data import GenoBed
+from gvamp import linear, multi, probit, robust, sim, slq
+from gvamp.data import GenoBed
 from test_data_layer import make_bed
 
 

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import scipy.special as ss
 import scipy.stats as st
 
-from gvamp_tpu.ops import special
+from gvamp.ops import special
 
 
 def test_erfcx_vs_scipy():
@@ -48,7 +48,7 @@ def test_log_mix_gauss_pdf_ratio():
     """Matches a direct scipy density-ratio computation."""
     import numpy as np
     from scipy.stats import norm
-    from gvamp_tpu.ops.special import log_mix_gauss_pdf_ratio
+    from gvamp.ops.special import log_mix_gauss_pdf_ratio
 
     rng = np.random.default_rng(3)
     eta_n = np.array([1.0, 4.0, 0.25])      # variances

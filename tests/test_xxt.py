@@ -8,7 +8,7 @@ the overall trajectory.
 
 import numpy as np
 
-from gvamp_tpu import linear
+from gvamp import linear
 from test_linear_vamp import build_sim
 import pytest
 
@@ -56,47 +56,6 @@ def test_xxt_mode_with_missing_phenotypes():
     cfg = linear.VampConfig(max_iter=3, rho=0.3, use_xxt=True)
     x_hat, state, hist = linear.infer(geno, cfg, probs_t, vars_t, verbose=False)
     assert np.isfinite(x_hat).all()
-
-
-@pytest.mark.parametrize("miss_rate", [0.0, 0.01])
-def test_fused_aat_gram_matches_two_pass(monkeypatch, miss_rate):
-    """XXT mode with the fused dual-Gram kernels (one packed pass per CG
-    iteration; a-only variant on complete genotypes) reproduces the
-    two-pass dual trajectory."""
-    import jax.numpy as jnp
-    from gvamp_tpu.data import GenoBed
-    from gvamp_tpu import sim
-    from test_data_layer import make_bed
-
-    rng = np.random.default_rng(37)
-    N, M, h2 = 300, 512, 0.6
-    codes = sim.random_genotypes(rng, M, N, miss_rate=miss_rate)
-    vars_t, probs_t = sim.two_group_prior(M, 20, h2)
-    beta = sim.simulate_mixture(rng, M, vars_t, probs_t)
-
-    def build():
-        g = GenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
-                                standardize_phen=False, backend="pallas")
-        return g
-
-    g0 = build()
-    y = sim.simulate_linear_phenotype(g0, beta, 1 / (1 - h2), rng)
-    g0.set_phen(y)
-    assert g0.fn_gram_aat() is not None
-
-    cfg = linear.VampConfig(max_iter=3, rho=0.3, use_xxt=True, seed=3)
-    x_f, _, h_f = linear.infer(g0, cfg, probs_t, vars_t, verbose=False)
-
-    monkeypatch.setattr(GenoBed, "fn_gram_aat", lambda self: None)
-    g1 = build()
-    g1.set_phen(y)
-    x_t, _, h_t = linear.infer(g1, cfg, probs_t, vars_t, verbose=False)
-
-    np.testing.assert_allclose(x_f, x_t, rtol=0,
-                               atol=5e-5 * (np.abs(x_t).max() + 1e-30))
-    for k in ("gam1", "gam2", "gamw", "alpha2"):
-        np.testing.assert_allclose(float(h_f[-1][k]), float(h_t[-1][k]),
-                                   rtol=2e-4)
 
 
 def test_dual_gram_tracking_matches_true_init_mult():

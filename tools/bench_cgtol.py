@@ -13,7 +13,7 @@ corr-vs-truth / gamw / R2 trajectories, the steady-state CG iteration
 count, and per-iteration wall-clock.
 
 Usage: python tools/bench_cgtol.py [N] [M] [ITERS]   (default config B)
-Run DETACHED on hardware (wedge protocol).
+Fails when JAX finds no GPU.
 """
 import json
 import os
@@ -32,11 +32,14 @@ ITERS = int(sys.argv[3]) if len(sys.argv) > 3 else 12
 def main():
     import jax
 
-    if os.environ.get("JAX_PLATFORMS", "") == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    from gvamp import runtime
+
+    runtime.require_gpu()
+    runtime.enable_compile_cache()
+    print(f"# {runtime.card_info()}", flush=True)
 
     import bench
-    from gvamp_tpu import linear, sim
+    from gvamp import linear, sim
 
     geno, lay, mpad = bench.synth_geno(N, M)
     print(f"# backend={jax.default_backend()} "

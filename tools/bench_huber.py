@@ -40,11 +40,14 @@ K = int(sys.argv[3]) if len(sys.argv) > 3 else 12
 def main():
     import jax
 
-    if os.environ.get("JAX_PLATFORMS", "") == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    from gvamp import runtime
+
+    runtime.require_gpu()
+    runtime.enable_compile_cache()
+    print(f"# {runtime.card_info()}", flush=True)
 
     import bench  # repo-root bench.py: synth_geno
-    from gvamp_tpu import robust, sim
+    from gvamp import robust, sim
 
     geno, lay, mpad = bench.synth_geno(N, M)
     gb = lay.n_words * 4 * mpad / 1e9

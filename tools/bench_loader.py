@@ -6,7 +6,7 @@ read + no transform, data.cpp:201-234 — the reference keeps byte-major
 and pays the layout cost inside every matvec instead).
 
 Usage: python tools/bench_loader.py [N] [M]     (defaults 65536 16384)
-CPU-only; safe to run without a TPU.
+CPU-only; needs no accelerator.
 """
 import os
 import sys
@@ -16,8 +16,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from gvamp_tpu import native
-from gvamp_tpu.ops.layout import PlanarLayout
+from gvamp import native
+from gvamp.ops.layout import PlanarLayout
 
 N = int(sys.argv[1]) if len(sys.argv) > 1 else 65536
 M = int(sys.argv[2]) if len(sys.argv) > 2 else 16384

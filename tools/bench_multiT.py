@@ -1,13 +1,13 @@
 """Multi-trait batching sweep: effective throughput vs T (round 5).
 
 With SLQ removing the T*P probe columns from the block CG, the wide-RHS
-width at trait count T is T CG columns + T rider columns — inside the
-int8 kernels' ~free zone (any B <= 32, docs/ROOFLINE.md).  This sweep
+width at trait count T is T CG columns + T rider columns, all riding one
+decode pass of the packed matrix.  This sweep
 measures the per-iteration cost at T in {4, 8, 16} against one trait on
 the shared packed matrix, reporting effective-throughput multiples.
 
 Usage: python tools/bench_multiT.py [N] [M] [K]   (defaults 102400 131072 4)
-Run DETACHED on hardware (wedge protocol).
+Fails when JAX finds no GPU.
 """
 import json
 import os
@@ -26,12 +26,15 @@ K = int(sys.argv[3]) if len(sys.argv) > 3 else 4
 def main():
     import jax
 
-    if os.environ.get("JAX_PLATFORMS", "") == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    from gvamp import runtime
+
+    runtime.require_gpu()
+    runtime.enable_compile_cache()
+    print(f"# {runtime.card_info()}", flush=True)
 
     import bench
     from tools.bench_engines import time_scan
-    from gvamp_tpu import linear, multi, sim
+    from gvamp import linear, multi, sim
 
     geno, lay, mpad = bench.synth_geno(N, M)
     print(f"# backend={jax.default_backend()} "

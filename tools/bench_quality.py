@@ -1,7 +1,7 @@
 """Biobank-scale inference-quality runs (the BASELINE.md headline rows).
 
 Full inference (not a timing synthetic) at N=327,680 x M=131,072 —
-10.74 GB packed, 5,000 causal markers, h2=0.5 — on one chip:
+10.74 GB packed, 5,000 causal markers, h2=0.5 — on one GPU:
 
   - linear: 12 VAMP iterations incl. compile; expect corr(x_hat, truth)
     ~0.98, train R2 ~ h2, gamw -> ~true 2.0
@@ -15,7 +15,7 @@ config-B shape — the long-horizon f32-drift and EM-merge-dynamics pin the
 corr/R2/gamw/prior trajectory plus the LOO p-value pass wall-clock.
 
 Usage: python tools/bench_quality.py [linear|probit|both|production]
-Run DETACHED on hardware (wedge protocol — see tools/hw_round3.sh).
+Fails when JAX finds no GPU.
 """
 import os
 import sys
@@ -29,7 +29,7 @@ N, M = 327680, 131072
 
 
 def run_linear(geno, lay, mpad, beta, probs_t, vars_t, rng):
-    from gvamp_tpu import linear, sim
+    from gvamp import linear, sim
 
     y = sim.simulate_linear_phenotype(geno, beta[:M], 2.0, rng)
     geno.set_phen(y)
@@ -48,7 +48,7 @@ def run_linear(geno, lay, mpad, beta, probs_t, vars_t, rng):
 
 
 def run_probit(geno, lay, mpad, beta, probs_t, vars_t, rng):
-    from gvamp_tpu import probit, sim
+    from gvamp import probit, sim
 
     y = sim.simulate_probit_phenotype(geno, beta[:M], 1.0, rng)
     geno.set_phen(y)
@@ -68,9 +68,9 @@ def run_production(geno, lay, mpad, beta, rng):
     23-component default prior, rho 0.05, LOO p-values at the end
     (dnanexus_example/run_gvamp.sh:25-31; utilities.cpp:91-140)."""
     import jax.numpy as jnp
-    from gvamp_tpu import linear, sim
-    from gvamp_tpu.ops import pvals as pv
-    from gvamp_tpu.prior import initialize_prior
+    from gvamp import linear, sim
+    from gvamp.ops import pvals as pv
+    from gvamp.prior import initialize_prior
 
     y = sim.simulate_linear_phenotype(geno, beta[:M], 2.0, rng)
     geno.set_phen(y)
@@ -111,9 +111,14 @@ def run_production(geno, lay, mpad, beta, rng):
 def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "both"
     import jax
+    from gvamp import runtime
+
+    runtime.require_gpu()
+    runtime.enable_compile_cache()
+    print(f"# {runtime.card_info()}", flush=True)
 
     import bench  # repo-root: synth_geno
-    from gvamp_tpu import sim
+    from gvamp import sim
 
     geno, lay, mpad = bench.synth_geno(N, M)
     print(f"# backend={jax.default_backend()} "
